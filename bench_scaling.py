@@ -6,8 +6,8 @@ scaling (fixed per-device batch), reporting efficiency vs n=1 — the
 BASELINE.md ">= 80% scaling efficiency 1 -> N" metric.
 
 Backends:
-* Real multi-chip TPU slice: genuine scaling numbers.
-* Single TPU chip (this machine): n=1 only — absolute per-chip rate.
+* Several GPUs of one host (all to all over NVLink): scaling numbers.
+* One GPU: n=1 only — the absolute per-card rate.
 * Virtual CPU mesh (JAX_PLATFORMS=cpu
   XLA_FLAGS=--xla_force_host_platform_device_count=8): validates the
   collective program end-to-end; the efficiency numbers measure XLA's
@@ -16,7 +16,7 @@ Backends:
 Writes SCALING.json (one object) and prints it as one line.
 
 Env: SCALE_CONFIG=testing|production (default: testing on cpu,
-production on tpu), SCALE_BATCH (per-device; default 256),
+production on gpu), SCALE_BATCH (per-device; default 256),
 SCALE_ITERS (default 3), SCALE_OUT (default SCALING.json).
 """
 
@@ -40,15 +40,15 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as Pspec
 
-    from stark_symphony_tpu.models.stwo import proof as P
-    from stark_symphony_tpu.models.stwo import verifier
-    from stark_symphony_tpu.models.stwo.config import PRODUCTION, TESTING
-    from stark_symphony_tpu.parallel.batch import make_mesh, shard_batch
-    from stark_symphony_tpu.utils.proofcache import cached_stwo_proof
+    from stark_symphony.models.stwo import proof as P
+    from stark_symphony.models.stwo import verifier
+    from stark_symphony.models.stwo.config import PRODUCTION, TESTING
+    from stark_symphony.parallel.batch import make_mesh, shard_batch
+    from stark_symphony.utils.proofcache import cached_stwo_proof
 
     backend = jax.default_backend()
     cfg_name = os.environ.get(
-        "SCALE_CONFIG", "production" if backend == "tpu" else "testing"
+        "SCALE_CONFIG", "production" if backend == "gpu" else "testing"
     )
     cfg = PRODUCTION if cfg_name == "production" else TESTING
     per_dev = int(os.environ.get("SCALE_BATCH", "256"))
@@ -107,7 +107,7 @@ def main():
         "virtual_mesh": virtual,
         # what this curve actually measures: on a virtual CPU mesh the N
         # partitions oversubscribe the host's cores, so efficiency-vs-1
-        # is a host-oversubscription number, NOT ICI/DCN scaling
+        # is a host-oversubscription number, NOT device scaling
         "measures": ("host_oversubscription" if virtual
                      else "device_scaling"),
         "real_chip_anchor": (

@@ -28,12 +28,12 @@ def main():
     jax.config.update("jax_compilation_cache_dir",
                       os.environ["JAX_COMPILATION_CACHE_DIR"])
 
-    from stark_symphony_tpu.models.stwo import proof as P
-    from stark_symphony_tpu.models.stwo.config import PRODUCTION
-    from stark_symphony_tpu.parallel.batch import (
+    from stark_symphony.models.stwo import proof as P
+    from stark_symphony.models.stwo.config import PRODUCTION
+    from stark_symphony.parallel.batch import (
         make_mesh, verify_batch_dp, verify_batch_tp,
     )
-    from stark_symphony_tpu.utils.proofcache import cached_stwo_proof
+    from stark_symphony.utils.proofcache import cached_stwo_proof
 
     n_dev = min(8, jax.device_count())
     b = int(os.environ.get("TP_BATCH", "32"))

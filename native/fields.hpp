@@ -1,5 +1,5 @@
 // Scalar field arithmetic for the native harness: M31 tower + F_{3*2^30+1}.
-// Semantics mirror stark_symphony_tpu/ops/field.py and field101.py (which
+// Semantics mirror stark_symphony/ops/field.py and field101.py (which
 // themselves mirror /root/reference/stwo-verifier/src/fields/*.simf and
 // /root/reference/stark101/src/field.simf).
 #pragma once

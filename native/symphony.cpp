@@ -1,9 +1,9 @@
-// symphony — native CLI harness for the TPU STARK verification framework.
+// symphony — native CLI harness for the batched STARK verification framework.
 //
 // The analogue of the reference Rust toolchain (simfony-cli,
 // /root/reference/simfony-cli/src/main.rs): a standalone scalar C++
 // verifier + transcript debugger that serves as (a) a cross-check oracle
-// for the JAX/TPU pipeline, (b) a `debug`-mode transcript dumper (the jet
+// for the JAX pipeline, (b) a `debug`-mode transcript dumper (the jet
 // tracker analogue, tracker.rs:43-80), and (c) a proof inspector printing
 // cost accounting (hash counts / sizes — the `node.bounds()` analogue).
 //

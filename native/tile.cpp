@@ -1,22 +1,19 @@
 // Native proof-ingestion relayout for the tiled fast path.
 //
 // models/stwo/tiled.py turns each per-query proof array from the proof
-// container's (B, Q, ..., W)-trailing layout into the kernels' word-major
-// (..., W, M, 128) vreg tiling.  The core of that relayout is a plain
-// (rows x cols) -> (cols x rows_padded) u32 transpose; numpy does it
-// single-threaded through a strided copy at ~1.3 s per 4096-proof
-// PRODUCTION batch on this host — the ingestion bottleneck of the
-// sustained-stream path (bench.py).  This is the TPU-era analogue of the
-// reference's witness generator being part of the toolchain, not the
-// verifier (stwo-verifier/scripts/generate_wit.py): ingestion runs on the
-// host and deserves native code.
+// container's (B, Q, ..., W)-trailing layout into the stage kernels'
+// word-major (..., W, M, 128) layout (lanes contiguous).  The core of that
+// relayout is a plain (rows x cols) -> (cols x rows_padded) u32 transpose,
+// which numpy does single-threaded through a strided copy.  Ingestion runs
+// on the host, like the reference's witness generator
+// (stwo-verifier/scripts/generate_wit.py), and deserves native code.
 //
 // Blocked, thread-parallel transpose: 64x64 u32 blocks (16 KiB in, fits
 // L1) over POSIX threads (gcc's libgomp is avoided so the .so has no
 // runtime deps beyond libpthread).
 //
-// Build: make -C native libstile.so   Loaded via ctypes by tiled.py with
-// a transparent numpy fallback when the library is absent.
+// Build: make -C native libstile.so (tiled.py runs it at first use and
+// uses numpy when the build fails).
 
 #include <cstdint>
 #include <cstring>
@@ -63,6 +60,7 @@ extern "C" {
 void stile_transpose_pad_u32(const uint32_t* in, uint32_t* out,
                              size_t rows, size_t cols, size_t out_rows,
                              int n_threads) {
+    if (out_rows < rows) return;  // no room for the input: write nothing
     if (out_rows > rows) {
         // zero the pad region first (tail of each output row)
         for (size_t c = 0; c < cols; ++c) {

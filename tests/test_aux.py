@@ -3,13 +3,13 @@ analogue), channel-cursor serialization, batch checkpoint/resume."""
 
 import numpy as np
 
-from stark_symphony_tpu.models.stwo import channel as stwo_ch
-from stark_symphony_tpu.utils.checkpoint import (
+from stark_symphony.models.stwo import channel as stwo_ch
+from stark_symphony.utils.checkpoint import (
     BatchCheckpointer,
     channel_state_from_dict,
     channel_state_to_dict,
 )
-from stark_symphony_tpu.utils.trace import (
+from stark_symphony.utils.trace import (
     format_ops,
     format_transcript,
     record_ops,
@@ -36,7 +36,7 @@ def test_record_transcript_events():
 def test_record_ops_jet_level():
     """Op-level tracing decodes every primitive call with args + result —
     the reference's full jet-tracker depth (tracker.rs:43-63)."""
-    from stark_symphony_tpu.ops import field as F
+    from stark_symphony.ops import field as F
 
     with record_ops() as events:
         a = np.uint32(3)
@@ -59,7 +59,7 @@ def test_record_ops_jet_level():
 
 
 def test_record_ops_filter():
-    from stark_symphony_tpu.ops import field as F
+    from stark_symphony.ops import field as F
 
     with record_ops({"m31_add"}) as events:
         F.m31_add(np.uint32(1), np.uint32(2))

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stark_symphony_tpu.ops import field as F
-from stark_symphony_tpu.ops import field101 as F1
+from stark_symphony.ops import field as F
+from stark_symphony.ops import field101 as F1
 
 P = F.P
 Q = F1.Q
@@ -145,7 +145,7 @@ class TestField101:
 
     def test_mod_words_golden(self):
         # stark101/src/channel.simf:109-114 draw test: state % 8193 == 365
-        from stark_symphony_tpu.utils.packing import u256_to_words
+        from stark_symphony.utils.packing import u256_to_words
 
         st = 53741377836084766287364085417998971256852254673610164556110591250061061441088
         w = jnp.asarray(u256_to_words(st))
@@ -159,8 +159,8 @@ def test_overflow_checks_debug_mode(monkeypatch):
     adds no checks (zero-overhead: trace-time branch)."""
     import numpy as np
 
-    from stark_symphony_tpu.ops import field as F
-    from stark_symphony_tpu.ops import field101 as F101
+    from stark_symphony.ops import field as F
+    from stark_symphony.ops import field101 as F101
 
     monkeypatch.delenv("STPU_CHECK", raising=False)
     # non-canonical input passes silently when checks are off

@@ -13,9 +13,9 @@ Makes the load-bearing claim of models/stwo/verifier.py executable:
 import numpy as np
 import pytest
 
-from stark_symphony_tpu.models.stwo import proof as P
-from stark_symphony_tpu.models.stwo import verifier
-from stark_symphony_tpu.tools.linkage_audit import audit
+from stark_symphony.models.stwo import proof as P
+from stark_symphony.models.stwo import verifier
+from stark_symphony.tools.linkage_audit import audit
 
 
 @pytest.mark.slow

@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stark_symphony_tpu.ops import circle as C
-from stark_symphony_tpu.ops import merkle as M
-from stark_symphony_tpu.ops import sha256 as S
-from stark_symphony_tpu.ops.u32 import bit_reverse
-from stark_symphony_tpu.utils.packing import u256_to_words
+from stark_symphony.ops import circle as C
+from stark_symphony.ops import merkle as M
+from stark_symphony.ops import sha256 as S
+from stark_symphony.ops.u32 import bit_reverse
+from stark_symphony.utils.packing import u256_to_words
 
 
 def test_merkle_golden_small():
@@ -100,7 +100,7 @@ class TestCircle:
 
     def test_vanishing_poly_golden(self):
         # composition_poly.simf:90-100
-        from stark_symphony_tpu.ops.field import qm31_scalar
+        from stark_symphony.ops.field import qm31_scalar
 
         point = jnp.stack([
             qm31_scalar(853359656, 1678958373, 358478267, 760744889),

@@ -7,21 +7,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stark_symphony_tpu.models.stwo import config as stwo_config
-from stark_symphony_tpu.models.stwo import proof as stwo_proof
-from stark_symphony_tpu.models.stwo import prover as stwo_prover
-from stark_symphony_tpu.models.stwo import verifier as stwo_verifier
-from stark_symphony_tpu.ops import field101 as F101
-from stark_symphony_tpu.parallel.batch import make_mesh
-from stark_symphony_tpu.parallel.expert import (
+from stark_symphony.models.stwo import config as stwo_config
+from stark_symphony.models.stwo import proof as stwo_proof
+from stark_symphony.models.stwo import prover as stwo_prover
+from stark_symphony.models.stwo import verifier as stwo_verifier
+from stark_symphony.ops import field101 as F101
+from stark_symphony.parallel.batch import make_mesh
+from stark_symphony.parallel.expert import (
     verify_batch_routed,
     verify_batch_routed_sharded,
 )
-from stark_symphony_tpu.parallel.fri_shard import (
+from stark_symphony.parallel.fri_shard import (
     stark101_fold_reference,
     stark101_fold_sharded,
 )
-from stark_symphony_tpu.parallel.pipeline import StreamVerifier, scan_microbatches
+from stark_symphony.parallel.pipeline import StreamVerifier, scan_microbatches
 
 CFG = stwo_config.TESTING
 
@@ -48,7 +48,7 @@ def test_sharded_fold_matches_reference():
 
 
 def _rand_qm31(shape, seed):
-    from stark_symphony_tpu.ops.field import P as M31P
+    from stark_symphony.ops.field import P as M31P
 
     return np.random.default_rng(seed).integers(
         0, M31P, size=shape + (4,), dtype=np.uint32
@@ -58,9 +58,9 @@ def _rand_qm31(shape, seed):
 def test_stwo_fold_sharded_matches_tables():
     """Sharded stwo circle+line folds == the in-lane twiddle-table fold
     (the prover's step-7 loop) bit-exactly on the 8-device mesh."""
-    from stark_symphony_tpu.ops import field as F
-    from stark_symphony_tpu.ops.circle_fft import twiddles
-    from stark_symphony_tpu.parallel.fri_shard import (
+    from stark_symphony.ops import field as F
+    from stark_symphony.ops.circle_fft import twiddles
+    from stark_symphony.parallel.fri_shard import (
         stwo_fold_reference,
         stwo_fold_sharded,
         stwo_domain_points,
@@ -102,8 +102,8 @@ def test_stwo_fold_sharded_matches_tables():
 def test_stwo_commit_sharded_matches_tree():
     """Sharded layer commitment (ppermute tree in natural-index space)
     == the prover's bit-reversed-leaf Merkle root."""
-    from stark_symphony_tpu.models.stwo.prover import _commit_leaves
-    from stark_symphony_tpu.parallel.fri_shard import stwo_commit_sharded
+    from stark_symphony.models.stwo.prover import _commit_leaves
+    from stark_symphony.parallel.fri_shard import stwo_commit_sharded
 
     lde_log = 7
     n = 1 << lde_log
@@ -121,7 +121,7 @@ def fib_proof(own_testing_proof):
 
 @pytest.fixture(scope="module")
 def product_proof():
-    from stark_symphony_tpu.utils.proofcache import cached_stwo_proof
+    from stark_symphony.utils.proofcache import cached_stwo_proof
 
     return cached_stwo_proof(CFG, "testing", air="wide_product")
 
@@ -177,7 +177,7 @@ def test_routed_batch_sharded(fib_proof, product_proof):
 def test_verify_batch_dp(fib_proof):
     """shard_map DP path: full 'reference' linkage, psum'd accept count,
     tampered lane survives locally (mask, not abort)."""
-    from stark_symphony_tpu.parallel.batch import verify_batch_dp
+    from stark_symphony.parallel.batch import verify_batch_dp
 
     mesh = make_mesh(8, tp=1)
     batch = stwo_proof.replicate(fib_proof, 16)
@@ -190,7 +190,7 @@ def test_verify_batch_dp(fib_proof):
 
 def test_verify_batch_gspmd_tp(fib_proof):
     """GSPMD DP+TP path: per-query sharding constraints over 'tp'."""
-    from stark_symphony_tpu.parallel.batch import verify_batch_gspmd
+    from stark_symphony.parallel.batch import verify_batch_gspmd
 
     mesh = make_mesh(8, tp=2)
     batch = stwo_proof.replicate(fib_proof, 8)

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stark_symphony_tpu.ops import sha256 as S
-from stark_symphony_tpu.utils.packing import (
+from stark_symphony.ops import sha256 as S
+from stark_symphony.utils.packing import (
     bytes32_to_words,
     hex_to_words,
     words_to_bytes32,

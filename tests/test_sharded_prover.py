@@ -12,9 +12,9 @@ import pytest
 
 import jax
 
-from stark_symphony_tpu.models.stwo import prover_sharded, verifier
-from stark_symphony_tpu.models.stwo.config import StwoConfig
-from stark_symphony_tpu.parallel.batch import make_mesh
+from stark_symphony.models.stwo import prover_sharded, verifier
+from stark_symphony.models.stwo.config import StwoConfig
+from stark_symphony.parallel.batch import make_mesh
 
 # lde 2^18 (the "exceeds one chip for big AIRs" scale point, blowup 2^4
 # like production), folds all the way to a constant last layer

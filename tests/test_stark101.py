@@ -7,9 +7,9 @@ import jax
 import numpy as np
 import pytest
 
-from stark_symphony_tpu.models.stark101 import proof as P
-from stark_symphony_tpu.models.stark101 import prover, verifier
-from stark_symphony_tpu.models.stark101.config import Stark101Config
+from stark_symphony.models.stark101 import proof as P
+from stark_symphony.models.stark101 import prover, verifier
+from stark_symphony.models.stark101.config import Stark101Config
 
 
 @pytest.fixture(scope="module")

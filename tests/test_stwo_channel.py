@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stark_symphony_tpu.models.stwo import channel as ch
-from stark_symphony_tpu.ops.u32 import byte_swap32, lt64
-from stark_symphony_tpu.utils.packing import u256_to_words
+from stark_symphony.models.stwo import channel as ch
+from stark_symphony.ops.u32 import byte_swap32, lt64
+from stark_symphony.utils.packing import u256_to_words
 
 
 def qm(a, b, c, d):

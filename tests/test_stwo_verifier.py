@@ -27,9 +27,9 @@ import jax
 import numpy as np
 import pytest
 
-from stark_symphony_tpu.models.stwo import proof as P
-from stark_symphony_tpu.models.stwo import verifier
-from stark_symphony_tpu.models.stwo.config import PRODUCTION, TESTING
+from stark_symphony.models.stwo import proof as P
+from stark_symphony.models.stwo import verifier
+from stark_symphony.models.stwo.config import PRODUCTION, TESTING
 
 
 @pytest.fixture(scope="module")
@@ -167,13 +167,13 @@ def test_fold_coords_match_position_map(lde_log, n_inner):
 
     import jax.numpy as jnp
 
-    from stark_symphony_tpu.ops.circle import (
+    from stark_symphony.ops.circle import (
         CircleDomain,
         LineDomain,
         circle_position_to_point,
         line_position_to_x,
     )
-    from stark_symphony_tpu.ops.u32 import bit_reverse
+    from stark_symphony.ops.u32 import bit_reverse
 
     cfg = dataclasses.replace(
         TESTING, lde_log_size=lde_log, n_inner_layers=n_inner
@@ -196,7 +196,7 @@ def test_fold_coords_match_position_map(lde_log, n_inner):
         np.testing.assert_array_equal(np.asarray(c), np.asarray(want), err_msg=f"layer {l}")
 
     # batch inversion agrees with per-element addition-chain inverses
-    from stark_symphony_tpu.ops import field as F
+    from stark_symphony.ops import field as F
 
     invs = verifier.batch_inv_m31(coords)
     for l, (c, i) in enumerate(zip(coords, invs)):

@@ -10,7 +10,7 @@ import json
 import numpy as np
 import pytest
 
-from stark_symphony_tpu.tools import witness as W
+from stark_symphony.tools import witness as W
 
 
 @pytest.mark.parametrize("name", ["proof_test", "proof"])
@@ -45,7 +45,7 @@ def test_stark101_simf_literal(fixtures_dir):
 @pytest.mark.parametrize("name", ["proof_test", "proof"])
 def test_stwo_proof_json_roundtrip(fixtures_dir, name):
     """parse -> export -> parse is the identity (array-exact)."""
-    from stark_symphony_tpu.models.stwo import proof as P
+    from stark_symphony.models.stwo import proof as P
 
     data = json.load(open(fixtures_dir / "stwo" / f"{name}.json"))
     p1, cfg1 = P.parse(data)

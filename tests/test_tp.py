@@ -9,15 +9,15 @@ import jax
 import numpy as np
 import pytest
 
-from stark_symphony_tpu.models.stwo import proof as P
-from stark_symphony_tpu.models.stwo import verifier
-from stark_symphony_tpu.models.stwo.config import TESTING_Q4
-from stark_symphony_tpu.parallel.batch import (
+from stark_symphony.models.stwo import proof as P
+from stark_symphony.models.stwo import verifier
+from stark_symphony.models.stwo.config import TESTING_Q4
+from stark_symphony.parallel.batch import (
     make_mesh,
     verify_batch_dp,
     verify_batch_tp,
 )
-from stark_symphony_tpu.utils.proofcache import cached_stwo_proof
+from stark_symphony.utils.proofcache import cached_stwo_proof
 
 
 @pytest.fixture(scope="module")
